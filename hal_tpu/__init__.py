@@ -1,7 +1,7 @@
-"""hal_tpu — a TPU-native hierarchical genome-alignment query engine.
+"""hal_tpu — an accelerator-native hierarchical genome-alignment query engine.
 
 A from-scratch re-design of the capabilities of ComparativeGenomicsToolkit/hal
-(reference at /root/reference) for TPU hardware:
+for accelerators driven through JAX (its device path runs on an NVIDIA GPU):
 
 * genomes are flat columnar (structure-of-arrays) segment arrays instead of an
   HDF5/mmap object graph (reference: api/hdf5_impl/, api/mmap_impl/),

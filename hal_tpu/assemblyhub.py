@@ -1,6 +1,6 @@
 """Assembly-hub track generators.
 
-TPU-native re-design of the reference's per-track Toil jobs
+Re-design of the reference's per-track Toil jobs
 (assemblyHub/gcPercentTrack.py, alignabilityTrack.py, conservationTrack.py,
 rmskTrack.py, bedTrack.py, wigTrack.py, snakeTrack.py): each reference job
 shells out to kent binaries (hgGcPercent, wigToBigWig, bedToBigBed); here

@@ -4,7 +4,7 @@ The reference models a genome as an object graph over HDF5/mmap storage
 (Genome / Sequence / TopSegment / BottomSegment, see
 /root/reference/api/inc/halGenome.h:33, halTopSegment.h:19,
 halBottomSegment.h:19).  Here a genome is a handful of flat numpy arrays that
-can be pushed to TPU HBM wholesale and traversed with batched gathers:
+can be pushed to device memory wholesale and traversed with batched gathers:
 
   tops (n_top segments, edges to the parent genome):
     top_start[n_top+1]      int64  genome coordinate of segment start; the

@@ -1,18 +1,67 @@
-"""ctypes binding to the native runtime (native/libhaltpu.so).
+"""ctypes binding to the native runtime (native/libhaltpu.so), and the
+build step every native library of the package goes through.
 
 Optional: every entry point has a numpy fallback; `available()` reports
-whether the shared library was found/built.  Build with `make -C native`.
+whether the shared library was built.  The libraries are built from the
+tracked sources in native/ on the machine that loads them (`build`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
+import sys
 
 import numpy as np
 
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native")
+
 _lib = None
 _tried = False
+
+
+def build(*targets: str) -> bool:
+    """Run `make -C native <targets>` under an exclusive file lock, so
+    concurrent processes never build the same library at once (make
+    rebuilds only what is out of date).  Returns True when make succeeded;
+    a failure is reported on stderr, and callers fall back to whatever
+    library file exists."""
+    try:
+        with open(os.path.join(NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            r = subprocess.run(["make", "-C", NATIVE_DIR, *targets],
+                               capture_output=True, text=True)
+    except OSError as e:  # no make, or a read-only checkout
+        sys.stderr.write("hal_tpu: cannot build native %s: %s\n"
+                         % (" ".join(targets), e))
+        return False
+    if r.returncode != 0:
+        sys.stderr.write("hal_tpu: cannot build native %s:\n%s\n"
+                         % (" ".join(targets), r.stderr[-2000:]))
+    return r.returncode == 0
+
+
+def _stale(path: str) -> bool:
+    """True when `path` is missing or older than a source in native/."""
+    try:
+        built = os.path.getmtime(path)
+    except OSError:
+        return True
+    return any(os.path.getmtime(os.path.join(NATIVE_DIR, f)) > built
+               for f in os.listdir(NATIVE_DIR)
+               if f == "Makefile" or f.endswith((".cpp", ".h")))
+
+
+def library_path(name: str) -> str | None:
+    """native/<name>, built first when missing or out of date; None when
+    it cannot be had."""
+    path = os.path.join(NATIVE_DIR, name)
+    if _stale(path):
+        build(name)
+    return path if os.path.exists(path) else None
 
 _I64 = ctypes.POINTER(ctypes.c_int64)
 _U8 = ctypes.POINTER(ctypes.c_uint8)
@@ -23,9 +72,8 @@ def _load():
     if _tried:
         return _lib
     _tried = True
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "native", "libhaltpu.so")
-    if not os.path.exists(path):
+    path = library_path("libhaltpu.so")
+    if path is None:
         return None
     try:
         lib = ctypes.CDLL(path)

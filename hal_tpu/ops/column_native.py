@@ -18,6 +18,8 @@ import os
 
 import numpy as np
 
+from hal_tpu.native import library_path
+
 _lib = None
 _tried = False
 
@@ -32,10 +34,9 @@ def _load():
     _tried = True
     if os.environ.get("HALTPU_NO_NATIVE"):
         return None
-    path = os.environ.get("HALTPU_COLUMN_LIB") or os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))), "native", "libhalcolumn.so")
-    if not os.path.exists(path):
+    path = (os.environ.get("HALTPU_COLUMN_LIB")
+            or library_path("libhalcolumn.so"))
+    if path is None or not os.path.exists(path):
         return None
     try:
         lib = ctypes.CDLL(path)

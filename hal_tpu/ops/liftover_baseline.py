@@ -4,18 +4,19 @@
 The reference toolchain cannot be built here (no HDF5 headers / sonLib in
 the image), so BASELINE.md's measured anchor is this single-threaded C++
 per-interval segment walk: the same algorithmic shape as halLiftover's hot
-loop (/root/reference/liftover/impl/halBlockLiftover.cpp:46-113 +
+loop (reference liftover/impl/halBlockLiftover.cpp:46-113 +
 api/impl/halSegmentMapper.cpp), running on the same machine and data as
-the TPU kernel.  Its fragment count must equal the device path's exactly
+the device kernel.  Its fragment count must equal the device path's exactly
 (bench.py asserts it), so rates compare equal work.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
+
+from hal_tpu.native import library_path
 
 _I64 = ctypes.POINTER(ctypes.c_int64)
 _U8 = ctypes.POINTER(ctypes.c_uint8)
@@ -29,9 +30,8 @@ def _load():
     if _tried:
         return _lib
     _tried = True
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "native", "libhalbaseline.so")
-    if not os.path.exists(path):
+    path = library_path("libhalbaseline.so")
+    if path is None:
         return None
     try:
         lib = ctypes.CDLL(path)

@@ -4,7 +4,8 @@ Lifts an entire batch of intervals through the device (or host) mapper and
 emits BED lines with per-interval semantics identical to ops/liftover's
 line-at-a-time path (verified by tests):
 
-  1. one batched map (segmap_jax.map_batch on TPU, segmap_host on CPU)
+  1. one batched map (segmap_jax.map_batch on an accelerator, segmap_host
+     on CPU)
      with owner ids,
   2. owner-aware atomize + dedup with composite integer keys (owner-scaled
      positions) — pure numpy, no per-interval Python,

@@ -3,10 +3,10 @@
 The reference scales across machines by launching CLI subprocesses over a
 shared filesystem and concatenating their text outputs
 (stats/halStats.py:33-48 runParallelShellCommands, maf/hal2mafMP.py:176
-runParallelSlices).  The TPU-native replacement: every process joins one
+runParallelSlices).  The replacement here: every process joins one
 jax.distributed job, query batches are sharded over the global 'data' mesh
-axis, reductions ride the collective fabric (ICI within a host, DCN across
-hosts), and ordered outputs are merged with a sorted-stream merge instead
+axis, reductions ride the collective fabric (NVLink within a host, the
+network across hosts), and ordered outputs are merged with a sorted-stream merge instead
 of file concatenation.
 
 Entry points:

@@ -3,7 +3,7 @@
 Parity with the reference's Python layer (stats/halStats.py:20-117): a
 shell-command pool primitive plus programmatic wrappers over halStats
 output, used by the *MP drivers (hal2mafMP, halPhyloPMP, halLodInterpolate
---numProc).  On a TPU host the preferred scaling path is jax.sharding
+--numProc).  On an accelerator host the preferred scaling path is jax.sharding
 (hal_tpu.parallel.sharded); these exist for CLI-compatible workflows."""
 
 from __future__ import annotations

@@ -10,23 +10,23 @@ QUERY FRAGMENTS move instead.  Per level:
   1. split local fragments at the level's D-1 shard-boundary coordinates
      (a tiny replicated array), so every piece falls in exactly one
      device's segment range,
-  2. route each piece to its owning device with ONE lax.all_to_all over
-     ICI (bucketed fixed-capacity send buffers, overflow-flagged),
+  2. route each piece to its owning device with ONE lax.all_to_all
+     (bucketed fixed-capacity send buffers, overflow-flagged),
   3. hop against the LOCAL (fields, m/D) table slab — paralogy-ring
      expansion included (the ring member CSR table is replicated: it is
      O(paralogous segments), a small minority next to the segment tables;
      ring members may land in any shard and the NEXT level's split+route
      re-buckets them).
 
-Peak per-device HBM is (tables)/D + fragment buffers: alignments larger
-than one device's HBM traverse without ever materializing a full level.
+Peak per-device memory is (tables)/D + fragment buffers: alignments larger
+than one device's memory traverse without ever materializing a full level.
 The trade is one fragment-sized all-to-all per level instead of one
 table-sized all-gather — the right side of the ledger whenever tables >>
 in-flight fragments, which is exactly the mammal-alignment regime (11M
 segments vs ~1M fragments in the bench).
 
 North star: "segment arrays sharded per-genome/per-chromosome across
-chips; collectives ride ICI".  Correctness is oracle-tested on the
+chips".  Correctness is oracle-tested on the
 virtual 8-device mesh (tests/test_ring_sharded.py); capacities are caller
 -chosen with overflow flags (generous-caps + retry semantics, unlike the
 replicated path's exact host sizing).

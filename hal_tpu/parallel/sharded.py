@@ -23,23 +23,23 @@ from hal_tpu.ops.segmap_jax import (PathData, _run_path,
 
 
 def ensure_virtual_devices(n: int) -> None:
-    """Force an n-device virtual CPU backend when fewer real devices exist.
-    JAX_PLATFORMS=cpu alone is unreliable when a TPU platform plugin is
-    installed (the plugin can win the backend race); jax.config is
-    authoritative.  Must run before heavy device use."""
+    """Make n devices available.  The CPU platform gets n virtual devices
+    (XLA's host device count, re-initialising the backend if it already
+    started with fewer); any other platform must have n devices already,
+    else this raises.  Must run before heavy device use."""
     import os
 
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
             flags + " --xla_force_host_platform_device_count=%d" % n).strip()
-    if jax.device_count() < n:
+    if jax.device_count() < n and jax.default_backend() == "cpu":
         from jax.extend import backend as _jexb
 
         _jexb.clear_backends()
-        jax.config.update("jax_platforms", "cpu")
-        assert jax.device_count() >= n, (
-            "need %d devices, have %d" % (n, jax.device_count()))
+    if jax.device_count() < n:
+        raise RuntimeError("need %d devices, have %d %s devices"
+                           % (n, jax.device_count(), jax.default_backend()))
 
 
 def make_mesh(n_data: int, n_coord: int = 1, devices=None) -> Mesh:
@@ -66,7 +66,7 @@ def make_sharded_step(path: PathData, caps: tuple, tgt_len: int, n_bins: int, me
         bin_of = jnp.clip(t_lo * n_bins // max(tgt_len, 1), 0, n_bins - 1)
         cov = jnp.zeros((n_bins,), jnp.int64)
         cov = cov.at[bin_of].add(jnp.where(valid, t_hi - t_lo, 0))
-        # merge across data shards, scatter across coord shards (ICI collective)
+        # merge across data shards, scatter across coord shards (collective)
         cov = jax.lax.psum(cov, "data")
         k = n_bins // n_coord
         ci = jax.lax.axis_index("coord")
@@ -87,10 +87,10 @@ def make_sharded_step(path: PathData, caps: tuple, tgt_len: int, n_bins: int, me
 # distributed across the mesh (north-star "segment arrays sharded
 # per-genome/per-chromosome"; reference per-genome storage decomposition
 # api/hdf5_impl/hdf5Genome.cpp:29-33).  Each Level's tables REST sharded
-# 1/D per device along the segment axis and are all-gathered over ICI only
-# for the one hop that needs them, then freed (the FSDP pattern applied to
-# lookup tables instead of weights) — so alignments larger than a single
-# device's HBM still traverse at device speed.
+# 1/D per device along the segment axis and are all-gathered only for the
+# one hop that needs them, then freed (the FSDP pattern applied to lookup
+# tables instead of weights) — so alignments larger than a single device's
+# memory still traverse at device speed.
 # ---------------------------------------------------------------------------
 
 def _pad_last(a: np.ndarray, mult: int, edge: bool):

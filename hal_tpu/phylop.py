@@ -55,8 +55,11 @@ class NeutralModel:
 
     @classmethod
     def from_mod_file(cls, path: str) -> "NeutralModel":
-        txt = open(path).read()
+        with open(path) as f:
+            return cls.from_mod_text(f.read())
 
+    @classmethod
+    def from_mod_text(cls, txt: str) -> "NeutralModel":
         def grab(key):
             m = re.search(r"^%s:\s*(.*)$" % key, txt, re.M)
             return m.group(1).strip() if m else None
@@ -95,6 +98,36 @@ class NeutralModel:
         e = np.exp(t[..., None] * self._lam)
         P = np.einsum("ij,...j,jk->...ik", self._U, e, self._Uinv)
         return np.clip(P, 1e-300, None)
+
+
+def random_mod_text(seed: int, n_leaves: int = 10) -> str:
+    """A phyloFit-format .mod drawn from `seed`: a random binary tree over
+    species sp0..sp{n_leaves-1} (internal nodes anc0..) with branch lengths
+    in [0.01, 0.3], and a REV rate matrix (transitions 2-5x the
+    transversions) normalised to one substitution per site at its
+    background frequencies."""
+    rng = np.random.default_rng(seed)
+    bg = rng.dirichlet([8.0] * 4)
+    S = np.triu(rng.uniform(0.5, 1.5, (4, 4)), 1)
+    S[0, 2] *= rng.uniform(2.0, 5.0)  # A<->G
+    S[1, 3] *= rng.uniform(2.0, 5.0)  # C<->T
+    Q = (S + S.T) * bg[None, :]
+    np.fill_diagonal(Q, -Q.sum(axis=1))
+    Q /= -(np.diag(Q) * bg).sum()
+    nodes = ["sp%d" % i for i in range(n_leaves)]
+    k = 0
+    while len(nodes) > 1:
+        i, j = sorted(rng.choice(len(nodes), 2, replace=False))
+        b = nodes.pop(j)
+        a = nodes.pop(i)
+        nodes.append("(%s:%.4f,%s:%.4f)anc%d"
+                     % (a, rng.uniform(0.01, 0.3), b, rng.uniform(0.01, 0.3),
+                        k))
+        k += 1
+    rows = "\n".join("  " + " ".join("%.10f" % v for v in r) for r in Q)
+    return ("ALPHABET: A C G T \nORDER: 0\nSUBST_MOD: REV\n"
+            "BACKGROUND: %s \nRATE_MAT:\n%s\nTREE: %s;\n"
+            % (" ".join("%.10f" % b for b in bg), rows, nodes[0]))
 
 
 def column_log_likelihood(model: NeutralModel, leaf_idx: dict,
@@ -328,7 +361,7 @@ class PhyloPScorer:
                 raise ValueError("no node named " + subtree)
             self.sub_nodes = frozenset(self.mod.tree.preorder(subtree))
         self._cache: dict = {}
-        # device (TPU) LRT: "auto" compiles the fit to XLA when an
+        # device LRT: "auto" compiles the fit to XLA when an
         # accelerator backend is present and the batch is big enough to
         # amortize dispatch; "on" forces it (tests run it on CPU-jax);
         # HALTPU_NO_DEVICE_PHYLOP=1 force-disables (same convention as
@@ -346,9 +379,9 @@ class PhyloPScorer:
         numpy fit — identical semantics, shared postprocessing.
 
         The engine is chosen ONCE, on the first batch, and kept for the
-        scorer's lifetime: the float32 device search and the float64
-        numpy fit agree only to ~1e-2, so switching engines per batch
-        would mix precisions within one output wiggle."""
+        scorer's lifetime: the device and numpy fits sum in different
+        orders, so switching engines per batch could change last digits
+        within one output wiggle."""
         if self._engine is None:
             if self.device == "on":
                 self._engine = "device"
@@ -396,13 +429,13 @@ class PhyloPScorer:
                     # compile cost only amortizes on real windows
                     use = on_accelerator() and ge - gs >= (1 << 16)
                 if use:
-                    try:
-                        from hal_tpu.ops.column_jax import DeviceColumnEngine
+                    from hal_tpu.ops.column_jax import DeviceColumnEngine
 
+                    try:
                         eng = DeviceColumnEngine(self.aln, ref,
                                                  targets=targets)
                         self._col_eng[ref] = eng
-                    except Exception:
+                    except ValueError:  # DFS key space exceeds the dtype
                         bad = getattr(self, "_col_bad", set())
                         bad.add(ref)
                         self._col_bad = bad

@@ -1,39 +1,35 @@
-"""Device (TPU) phyloP scoring — the Felsenstein LRT of hal_tpu.phylop
-compiled to one XLA program per tree.
+"""Device phyloP scoring — the Felsenstein LRT of hal_tpu.phylop compiled
+to one XLA program per tree.
 
 The reference delegates per-column likelihood fitting to phast
 (reference phyloP/impl/halPhyloP.cpp:282-346: col_compute_log_likelihood
 + opt_newton_1d per column, one column at a time); hal_tpu.phylop
-vectorizes that across unique column patterns in numpy.  This module is
-the TPU-native version of the same fit: the pruning recursion is traced
-once over the (small) model tree and the golden-section scale search runs
-as a lax.fori_loop, so the whole alternative-model optimization for a
-window's patterns is a single fused device program.
+vectorizes that across unique column patterns in numpy.  This module
+compiles the same fit: the pruning recursion is traced once over the
+(small) model tree and the golden-section scale search runs as a
+lax.fori_loop, so the whole alternative-model optimization for a window's
+patterns is a single fused device program.
 
-TPU layout notes (see CLAUDE.md):
-  * partial likelihoods live as (4, npat) — states on sublanes, patterns
-    on lanes — so the per-edge transition applications are two
-    (4,4)@(4,npat) matmuls in the rate matrix's eigenbasis:
-        P(t) @ L  =  U @ (exp(lam*t)[:,None] * (Uinv @ L))
-    with a per-pattern branch scale folded into t.  No per-pattern (4,4)
-    matrices are ever materialized.
-  * per-node renormalization (max over states) keeps float32 in range on
-    deep trees; dtype is float64 under the CPU backend (x64 on) and
-    float32 on accelerators, where parity with the numpy/f64 oracle is
-    ~1e-3 in score units (tests/test_phylop_jax.py).
+Layout: partial likelihoods live as (4, npat), so the per-edge transition
+applications are two (4,4)@(4,npat) products in the rate matrix's
+eigenbasis:
+    P(t) @ L  =  U @ (exp(lam*t)[:,None] * (Uinv @ L))
+with a per-pattern branch scale folded into t.  No per-pattern (4,4)
+matrices are ever materialized.  Per-node renormalization (max over
+states) keeps deep trees in range.
+
+The fit runs in float64 on every platform, so its products never run in
+reduced precision (no TF32 on GPU tensor cores) and it matches the
+all-float64 numpy path to ~1e-12 in score units (PERF.md).
 
 Division of labor: the device runs the expensive part — the golden-
 section searches, ~100 full-tree likelihood evaluations per pattern —
 and returns only the FITTED SCALES; the host then recomputes the final
 null/alternative log-likelihoods once each in float64 (vectorized numpy,
 2 evaluations) and applies the shared chi^2/sign/mask postprocessing
-(hal_tpu.phylop.scores_from_lrt).  The likelihood surface is flat at the
-optimum, so a float32 search perturbs the fitted scale only ~sqrt(eps)
-and the float64 re-evaluation kills the first-order error — in
-particular the boundary columns of CON/ACC (delta == 0 exactly, a point
-mass in the p-value mixture) keep their exact zero instead of inheriting
-float32 noise.  Measured parity vs the all-float64 numpy path:
-~1e-6 in score units (tests/test_phylop_jax.py).
+(hal_tpu.phylop.scores_from_lrt); the boundary columns of CON/ACC
+(delta == 0 exactly, a point mass in the p-value mixture) keep their
+exact zero.
 """
 
 from __future__ import annotations
@@ -62,12 +58,12 @@ class DevicePhyloP:
 
     Mirrors hal_tpu.phylop.score_patterns exactly (same golden-section
     iteration count, same per-mode scale bounds, same subtree alternating
-    fit) — the only difference is arithmetic dtype on accelerators.
+    fit), in float64.
     """
 
     def __init__(self, model: NeutralModel, leaf_idx: dict,
                  mode: str = "CONACC",
-                 sub_nodes: frozenset | None = None, dtype=None):
+                 sub_nodes: frozenset | None = None):
         import jax
 
         if mode not in ("CONACC", "CON", "ACC", "NNEUT"):
@@ -76,13 +72,9 @@ class DevicePhyloP:
         self.leaf_idx = dict(leaf_idx)
         self.mode = mode
         self.sub_nodes = frozenset(sub_nodes or ())
-        if dtype is None:
-            dtype = (np.float64 if jax.default_backend() == "cpu"
-                     else np.float32)
-        self.dtype = np.dtype(dtype)
-        if self.dtype == np.float64:
-            # float64 math needs x64 (segmap_jax also sets this globally)
-            jax.config.update("jax_enable_x64", True)
+        self.dtype = np.dtype(np.float64)
+        # float64 math needs x64 (segmap_jax also sets this globally)
+        jax.config.update("jax_enable_x64", True)
         # flatten the tree into a postorder edge program: for each internal
         # node, its children with (branch length, in-subtree flag)
         self._prog = []
@@ -112,8 +104,7 @@ class DevicePhyloP:
         Uinv = jnp.asarray(self._Uinv)
         lam = jnp.asarray(self._lam)
         bg = jnp.asarray(self._bg)
-        tiny = jnp.asarray(1e-300 if self.dtype == np.float64 else 1e-30,
-                           self.dtype)
+        tiny = jnp.asarray(1e-300, self.dtype)
         partial = dict(leafL)
         logscale = jnp.zeros(scale.shape, self.dtype)
         for name, kids in self._prog:
@@ -122,9 +113,10 @@ class DevicePhyloP:
                 t = jnp.asarray(bl, self.dtype) * scale
                 if in_sub:
                     t = t * sub_scale
-                w = Uinv @ partial.pop(child)                 # (4, npat)
+                w = jnp.matmul(Uinv, partial.pop(child))  # (4, npat)
                 w = w * jnp.exp(lam[:, None] * t[None, :])
-                w = jnp.maximum(U @ w, 0.0)   # P>=0 (phylop.py pmatrix clip)
+                # P >= 0 (phylop.py pmatrix clip)
+                w = jnp.maximum(jnp.matmul(U, w), 0.0)
                 L = w if L is None else L * w
             mx = jnp.max(L, axis=0)
             mx = jnp.where(mx > 0, mx, 1.0)
@@ -132,7 +124,7 @@ class DevicePhyloP:
             logscale = logscale + jnp.log(mx)
             partial[name] = L
         root = partial[self._prog[-1][0]]
-        return jnp.log(jnp.maximum(bg @ root, tiny)) + logscale
+        return jnp.log(jnp.maximum(jnp.matmul(bg, root), tiny)) + logscale
 
     def _golden(self, fn, lo, hi, npat):
         """Vectorized golden-section maximization of fn over [lo, hi]
@@ -245,13 +237,6 @@ class DevicePhyloP:
                                             patterns, scale)
             sign_scale = scale
         delta = alt_lnl - null_lnl
-        # float32 search noise floor: a fitted scale off by ~sqrt(eps_f32)
-        # perturbs delta by ~1e-5 (second order); below that the LRT
-        # carries no signal (score <= ~0.3) and the exact boundary zero
-        # must win.  float64 searches need no floor (scores_from_lrt's
-        # 1e-9 snap covers them).
-        if self.dtype == np.float32:
-            delta = np.where(delta < 1e-4, 0.0, delta)
         if self.sub_nodes:
             inside = [self.leaf_idx[n] for n in self.leaf_idx
                       if n in self.sub_nodes]
@@ -268,9 +253,6 @@ class DevicePhyloP:
 def on_accelerator() -> bool:
     """True when jax's default backend is a real accelerator (the
     PhyloPScorer "auto" policy compiles the fit only then)."""
-    try:
-        import jax
+    import jax
 
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
+    return jax.default_backend() != "cpu"

@@ -8,7 +8,7 @@ Mirrors the factory in /root/reference/api/inc/halAlignmentInstance.h:83-111
     (e.g. Cactus) open directly and vice versa.
   * halz — hal_tpu's native columnar shard format: a directory of .npy
     arrays + JSON manifest, mmap-friendly and trivially sharded
-    per-genome/per-array (the TPU-native replacement for the reference's
+    per-genome/per-array (the replacement for the reference's
     mmap driver, api/mmap_impl/).
 """
 

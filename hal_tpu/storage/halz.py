@@ -1,6 +1,6 @@
 """halz — hal_tpu's native columnar shard storage format.
 
-The TPU-native replacement for the reference's mmap driver
+The replacement for the reference's mmap driver
 (/root/reference/api/mmap_impl/): instead of one 64-GiB pre-allocated file
 of offset-linked structs (mmapFile.h:23-73), an alignment is a directory of
 flat .npy arrays — exactly the arrays the device kernels consume — plus a

@@ -52,7 +52,7 @@ def run(argv=None):
     p.add_argument("--onlyOrthologs", action="store_true")
     p.add_argument("--keepEmptyRefBlocks", action="store_true")
     p.add_argument("--device", action="store_true",
-                   help="run column construction on the TPU "
+                   help="run column construction on the device "
                         "(hal_tpu.ops.column_jax) with the native C++ MAF "
                         "assembler; output is byte-identical.  Falls back "
                         "(with a notice) for flags outside the device "
@@ -85,7 +85,7 @@ def run(argv=None):
         targets = None
         scope = None
 
-    # --device: TPU column construction (DFS-keyed fragment programs) +
+    # --device: device column construction (DFS-keyed fragment programs) +
     # native C++ assembly — byte-identical to every other engine
     device_eng = None
     if o.device:
@@ -95,14 +95,16 @@ def run(argv=None):
             sys.stderr.write("hal2maf: --device does not cover this flag "
                              "set; using the native/python engine\n")
         else:
-            try:
-                from hal_tpu.ops.column_jax import DeviceColumnEngine
+            from hal_tpu.ops.column_jax import DeviceColumnEngine
+            from hal_tpu.ops.segmap_jax import enable_compile_cache
 
+            enable_compile_cache()
+            try:
                 device_eng = DeviceColumnEngine(
                     aln, ref, scope=scope, targets=targets,
                     no_ancestors=o.noAncestors, no_dupes=o.noDupes,
                     only_orthologs=o.onlyOrthologs)
-            except Exception as e:
+            except ValueError as e:  # DFS key space exceeds the dtype
                 sys.stderr.write("hal2maf: device engine unavailable "
                                  "(%s); falling back\n" % e)
 

@@ -2,8 +2,9 @@
 
 Slices the reference genome into windows (or splits by sequence / BED
 targets), runs one hal2maf --unique per slice in a process pool, and
-concatenates the results.  Note: on a single TPU host the sharded device
-path is usually faster; this driver exists for workflow parity."""
+concatenates the results.  The workers run hal2maf's host engines (no
+--device), so any number of them can share a machine with one
+accelerator; this driver exists for workflow parity."""
 
 from __future__ import annotations
 

@@ -27,7 +27,7 @@ def run(argv=None):
     p.add_argument("--countDupes", action="store_true")
     p.add_argument("--noAncestors", action="store_true")
     p.add_argument("--device", action="store_true",
-                   help="run the column-depth engine on the TPU "
+                   help="run the column-depth engine on the device "
                         "(hal_tpu.ops.depth.depth_counts_device); output "
                         "is identical")
     add_storage_options(p)
@@ -51,6 +51,10 @@ def run(argv=None):
     scope, scope_root = compute_scope(aln, ref, targets, root)
 
     out = out_stream(o.outWiggle)
+    if o.device:
+        from hal_tpu.ops.segmap_jax import enable_compile_cache
+
+        enable_compile_cache()
 
     def emit(si, s, ln):
         base = int(g.seq_start[si])

@@ -27,7 +27,8 @@ def run(argv=None):
     p.add_argument("--bedType", type=int, default=0)
     p.add_argument("--batchSize", type=int, default=0,
                    help="map this many BED lines per batch through the bulk "
-                        "mapper (the TPU kernel when a device is present); "
+                        "mapper (the device kernel when JAX has an "
+                        "accelerator); "
                         "0 = per-line host mapping.  Output is identical "
                         "either way")
     add_storage_options(p)
@@ -54,17 +55,13 @@ def run(argv=None):
     else:
         out_stream = open(o.tgtBed, "a" if o.append else "w")
     if o.batchSize > 0:
-        use_device = False
-        try:
-            import jax
+        import jax
 
-            use_device = jax.default_backend() not in ("cpu",)
-            if use_device:
-                from hal_tpu.ops.segmap_jax import enable_compile_cache
+        use_device = jax.default_backend() != "cpu"
+        if use_device:
+            from hal_tpu.ops.segmap_jax import enable_compile_cache
 
-                enable_compile_cache()
-        except Exception:
-            pass
+            enable_compile_cache()
         lift.convert_batched(in_stream, out_stream, o.bedType,
                              batch_size=o.batchSize, use_device=use_device)
     else:

@@ -50,6 +50,10 @@ def run(argv=None):
 
     from hal_tpu.phylop import NeutralModel, PhyloPScorer
 
+    if o.device != "off":
+        from hal_tpu.ops.segmap_jax import enable_compile_cache
+
+        enable_compile_cache()
     aln = open_alignment(o.halPath)
     mod = NeutralModel.from_mod_file(o.modFile)
     scorer = PhyloPScorer(aln, mod, mode=o.mode, dup_mask=o.dupMask,

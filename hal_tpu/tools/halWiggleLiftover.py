@@ -30,7 +30,7 @@ def run(argv=None):
     p.add_argument("--unique", action="store_true")
     p.add_argument("--batchSize", type=int, default=0,
                    help="map wiggle runs through the device bulk mapper "
-                        "when a TPU is present; output is identical")
+                        "when JAX has an accelerator; output is identical")
     add_storage_options(p)
     o = p.parse_args(argv)
     aln = open_alignment(o.halFile)
@@ -41,17 +41,14 @@ def run(argv=None):
 
     device_path = None
     if o.batchSize > 0:
-        try:
-            import jax
+        import jax
 
-            if jax.default_backend() not in ("cpu",):
-                from hal_tpu.ops import segmap_jax as sj
+        if jax.default_backend() != "cpu":
+            from hal_tpu.ops import segmap_jax as sj
 
-                sj.enable_compile_cache()
-                device_path = sj.PathData.build(aln, o.srcGenome, o.tgtGenome,
-                                                do_dupes=not o.noDupes)
-        except Exception:
-            device_path = None
+            sj.enable_compile_cache()
+            device_path = sj.PathData.build(aln, o.srcGenome, o.tgtGenome,
+                                            do_dupes=not o.noDupes)
 
     def map_intervals(lo, hi):
         """Device or host interval mapping with identical fragment output

@@ -10,7 +10,7 @@
 // honest external anchor for BASELINE.md: what a reference-style native
 // single-core implementation achieves on the SAME machine and data.  It
 // is deliberately the straightforward pointer-walking design (per
-// fragment, per level) — not the vectorized host mapper and not the TPU
+// fragment, per level) — not the vectorized host mapper and not the device
 // kernel — and its fragment count must equal the device path's exactly
 // (checked by bench.py), so the measured ratio compares equal work.
 

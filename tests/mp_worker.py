@@ -19,11 +19,7 @@ def main():
                                " --xla_force_host_platform_device_count=2").strip()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-    # a TPU platform plugin can win the backend race over JAX_PLATFORMS;
-    # jax.config is authoritative and must be set before distributed init
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
     from hal_tpu.parallel import distributed as dist
 

@@ -10,11 +10,16 @@ import sys
 import numpy as np
 import pytest
 
+from hal_tpu.native import library_path
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIB = os.path.join(REPO, "native", "libhalblockviz_native.so")
 
-pytestmark = pytest.mark.skipif(not os.path.exists(LIB),
-                                reason="libhalblockviz_native.so not built")
+
+@pytest.fixture(autouse=True, scope="module")
+def _built_lib():
+    if library_path("libhalblockviz_native.so") is None:
+        pytest.skip("libhalblockviz_native.so cannot be built")
 
 
 class _Block(ctypes.Structure):

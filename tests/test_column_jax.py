@@ -1,4 +1,4 @@
-"""Device column engine (hal_tpu.ops.column_jax) — the TPU 'iterative
+"""Device column engine (hal_tpu.ops.column_jax) — the device 'iterative
 frontier scan' equivalent of the reference ColumnIterator
 (/root/reference/api/impl/halColumnIterator.cpp:246-356 feeding
 maf/impl/halMafExport.cpp:25-89).

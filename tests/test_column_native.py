@@ -11,8 +11,11 @@ from hal_tpu.ops.column import compute_scope, iter_slices_exact
 
 from fixtures import three_genome_alignment
 
-pytestmark = pytest.mark.skipif(not cn.available(),
-                                reason="libhalcolumn.so not built")
+
+@pytest.fixture(autouse=True, scope="module")
+def _built_lib():
+    if not cn.available():
+        pytest.skip("libhalcolumn.so cannot be built")
 
 
 def _python_maf(aln, ref, gs, ge, window=1 << 20, **kw):

@@ -1,4 +1,5 @@
-"""Native library cross-checks (skipped when native/libhaltpu.so not built)."""
+"""Native library cross-checks (skipped when native/libhaltpu.so cannot be
+built)."""
 
 import os
 import numpy as np
@@ -6,7 +7,11 @@ import pytest
 
 from hal_tpu import dna, native
 
-pytestmark = pytest.mark.skipif(not native.available(), reason="native lib not built")
+
+@pytest.fixture(autouse=True, scope="module")
+def _built_lib():
+    if not native.available():
+        pytest.skip("native/libhaltpu.so cannot be built")
 
 
 def test_parse_format_roundtrip():
@@ -111,11 +116,8 @@ def test_blockviz_c_abi(tmp_path):
     src = os.path.join(repo, "native", "tests", "blockviz_cabi_test.c")
     if shutil.which("gcc") is None:
         pytest.skip("no C compiler")
-    if not os.path.exists(lib):
-        r = subprocess.run(["make", "-C", os.path.join(repo, "native"),
-                            "libhalblockviz.so"], capture_output=True)
-        if r.returncode != 0:
-            pytest.skip("cannot build libhalblockviz.so: " + r.stderr.decode()[-500:])
+    if native.library_path("libhalblockviz.so") is None:
+        pytest.skip("cannot build libhalblockviz.so")
     exe = tmp_path / "bvtest"
     subprocess.run(["gcc", "-O2", "-o", str(exe), src, "-ldl"], check=True)
 
@@ -146,8 +148,8 @@ def test_blockviz_bed_maf_drivers(tmp_path):
     lib = os.path.join(repo, "native", "libhalblockviz.so")
     if shutil.which("gcc") is None:
         pytest.skip("no C compiler")
-    if not os.path.exists(lib):
-        pytest.skip("libhalblockviz.so not built")
+    if native.library_path("libhalblockviz.so") is None:
+        pytest.skip("cannot build libhalblockviz.so")
 
     from hal_tpu.randgen_exact import create_preset_alignment_exact
     from hal_tpu.storage import hdf5_driver

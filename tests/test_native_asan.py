@@ -9,6 +9,8 @@ import subprocess
 
 import pytest
 
+from hal_tpu.native import build, library_path
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE = os.path.join(REPO, "native")
 
@@ -29,8 +31,7 @@ def _asan_available():
 def asan_lib():
     if not _asan_available():
         pytest.skip("libasan not available")
-    r = subprocess.run(["make", "-C", NATIVE, "asan"], capture_output=True)
-    assert r.returncode == 0, r.stderr.decode()[-1000:]
+    assert build("asan")
     return os.path.join(NATIVE, "libhaltpu_asan.so")
 
 
@@ -61,12 +62,9 @@ def test_blockviz_free_contract_under_asan(tmp_path):
     the ASan-instrumented driver's interposed allocator verifies it."""
     if not _asan_available():
         pytest.skip("libasan not available")
-    lib = os.path.join(NATIVE, "libhalblockviz.so")
-    if not os.path.exists(lib):
-        r = subprocess.run(["make", "-C", NATIVE, "libhalblockviz.so"],
-                           capture_output=True)
-        if r.returncode != 0:
-            pytest.skip("cannot build libhalblockviz.so")
+    lib = library_path("libhalblockviz.so")
+    if lib is None:
+        pytest.skip("cannot build libhalblockviz.so")
     src = os.path.join(NATIVE, "tests", "blockviz_free_test.c")
     exe = tmp_path / "blockviz_free_test"
     subprocess.run(["gcc", "-O1", "-g", "-fsanitize=address",
@@ -82,11 +80,8 @@ def test_blockviz_server_under_asan(tmp_path):
     dna, error path) with leak detection on."""
     if not _asan_available():
         pytest.skip("libasan not available")
-    r = subprocess.run(["make", "-C", NATIVE,
-                        "libhalblockviz_native_asan.so"],
-                       capture_output=True)
-    assert r.returncode == 0, r.stderr.decode()[-800:]
-    lib = os.path.join(NATIVE, "libhalblockviz_native_asan.so")
+    lib = library_path("libhalblockviz_native_asan.so")
+    assert lib is not None
 
     from hal_tpu.randgen import create_random_alignment
     from hal_tpu.storage import save_alignment

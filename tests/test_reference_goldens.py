@@ -97,8 +97,8 @@ def test_halLiftover_goldens(small_hal, tmp_path, golden, bed, flags):
 @pytest.mark.parametrize("golden,bed,flags", LIFTOVER_CASES[:4],
                          ids=[c[0] + "-batched" for c in LIFTOVER_CASES[:4]])
 def test_halLiftover_goldens_batched(small_hal, tmp_path, golden, bed, flags):
-    """--batchSize routes through the bulk mapper (the device kernel when a
-    TPU is present); output bytes must be identical (VERDICT next #3)."""
+    """--batchSize routes through the bulk mapper (the device kernel when
+    JAX has an accelerator); output bytes must be identical (VERDICT next #3)."""
     out = tmp_path / "out"
     run_tool(["hal_tpu.tools.halLiftover", "--batchSize", "512"] + flags +
              [small_hal, "Genome_0", REF + "/liftover/tests/input/" + bed,

@@ -84,11 +84,10 @@ def test_overflow_retry():
     assert got == want
 
 
-def test_paged_lookup_matches_host(monkeypatch):
-    """Force the paged segment lookup (mammal-scale path) on small grids and
-    check device==host; also sanity-check the page-table builder and the
-    host sizing totals feed tight caps without overflow."""
-    monkeypatch.setattr(sj, "_PALLAS_GRID_LIMIT", 4)
+def test_paged_lookup_matches_host():
+    """The paged segment lookup on small grids gives device==host; also
+    sanity-check the page-table builder and the host sizing totals feed
+    tight caps without overflow."""
     aln = create_random_alignment(seed=5, max_genomes=5, min_segments=8,
                                   max_segments=40, min_segment_length=3,
                                   max_segment_length=9)
@@ -168,9 +167,9 @@ def test_option_combos_exhaustive_pairs(seed):
 
 
 def test_uint32_path_big_genome():
-    """Genomes past 2^31 bases select the uint32 device dtype (native
-    32-bit TPU ops; int64 is emulated AND uncacheable) — results must
-    equal the host oracle, and the packed u32 transfer must be lossless."""
+    """Genomes past 2^31 bases select the uint32 device dtype (32-bit rows
+    halve the bytes each gather moves) — results must equal the host
+    oracle, and the packed u32 transfer must be lossless."""
     import jax.numpy as jnp
 
     aln = create_random_alignment(seed=4, max_genomes=5, min_genomes=4,
@@ -215,3 +214,77 @@ def test_uint32_path_big_genome():
         np.asarray(out), k, 8)
     got2 = _pairs_with_owner(ds_lo, ds_hi, dt_lo, dt_hi, drev, down)
     assert got2 == want
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.int64])
+@pytest.mark.parametrize("n_grid", [500, 70000])
+@pytest.mark.parametrize("paged", [True, False])
+def test_searchsorted_dispatch_matches_numpy(dtype, n_grid, paged):
+    """_searchsorted_right == np.searchsorted(side="right") through the
+    paged lookup and through jnp.searchsorted (a level without a page
+    table), on short and long grids, including queries before the grid's
+    first and past its last entry."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n_grid)
+    top = 40 * n_grid
+    grid = np.unique(np.concatenate([[100], rng.integers(100, top, n_grid)]))
+    q_min = 0 if dtype == np.uint32 else -50
+    q = rng.integers(q_min, top + 200, 4096)
+    q[:4] = [q_min, 99, top + 150, grid[-1]]
+    page_tab, shift = sj._pages(grid)
+    assert page_tab is not None  # every grid here has a page table
+    if not paged:
+        page_tab, shift = None, 0
+    out = sj._searchsorted_right(jnp.asarray(grid, dtype),
+                                 jnp.asarray(q, dtype), page_tab, shift)
+    assert out.dtype == jnp.dtype(dtype)
+    want = np.searchsorted(grid, q, side="right")
+    assert np.array_equal(np.asarray(out).astype(np.int64), want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.int64])
+@pytest.mark.parametrize("full", [False, True])
+def test_expand_owner_matches_repeat(dtype, full):
+    """own[j] is the input owning output slot j (np.repeat of the input
+    indices by their counts), zero counts own nothing, and a cap_out equal
+    to the total fills every slot."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(7)
+    counts = rng.integers(0, 4, 300)
+    counts[:5] = 0
+    counts[-3:] = 0
+    total = int(counts.sum())
+    cap = total if full else total + 37
+    own, offsets, tot = jax.jit(sj._expand_owner, static_argnums=1)(
+        jnp.asarray(counts, dtype), cap)
+    assert own.shape == (cap,)
+    assert int(tot) == total
+    assert np.array_equal(np.asarray(offsets), np.cumsum(counts) - counts)
+    want = np.repeat(np.arange(len(counts)), counts)
+    assert np.array_equal(np.asarray(own)[:total], want)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_placement(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR, when set, places the cache and the code
+    sets no directory; unset, the cache is the fixed <repo>/.jax_cache."""
+    import os
+
+    calls = {}
+    monkeypatch.setattr(sj.jax.config, "update",
+                        lambda k, v: calls.__setitem__(k, v))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    sj.enable_compile_cache()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if env_set:
+        assert "jax_compilation_cache_dir" not in calls
+    else:
+        assert calls["jax_compilation_cache_dir"] == os.path.join(
+            repo, ".jax_cache")
+    assert "jax_persistent_cache_min_compile_time_secs" in calls

@@ -90,6 +90,20 @@ def test_sharded_step_matches_host_mapper():
     assert got_pairs == want_pairs
 
 
+def test_ensure_virtual_devices_raises_off_cpu(monkeypatch):
+    """Too few devices on an accelerator platform is an error, never a
+    silent switch to the CPU."""
+    import jax
+    import pytest
+
+    from hal_tpu.parallel import sharded
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="need 4 devices"):
+        sharded.ensure_virtual_devices(4)
+
+
 def test_driver_dryrun_multichip():
     import __graft_entry__ as ge
 

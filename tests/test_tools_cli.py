@@ -93,7 +93,7 @@ def test_hdf5_cli_flow(tmp_path):
 
 
 def test_hal2maf_device_flag_byte_equal(halz_file, tmp_path_factory):
-    """hal2maf --device (TPU column engine + native assembler) through the
+    """hal2maf --device (device column engine + native assembler) through the
     CLI surface: byte-equal to the default engine, incl. --noDupes and
     --noAncestors."""
     import os
@@ -115,3 +115,46 @@ def test_hal2maf_device_flag_byte_equal(halz_file, tmp_path_factory):
         assert r2.returncode == 0, r2.stderr
         assert "engine=device" in r2.stderr, r2.stderr
         assert open(a, "rb").read() == open(b, "rb").read(), extra
+
+
+@pytest.mark.parametrize("exc", [ValueError, RuntimeError])
+def test_hal2maf_device_engine_failure_route(halz_file, tmp_path,
+                                             monkeypatch, capsys, exc):
+    """A ValueError from the device engine (its documented DFS key-space
+    refusal) falls back to the host engine with a notice and the same
+    bytes; any other failure raises."""
+    from hal_tpu.ops import column_jax
+    from hal_tpu.tools import hal2maf
+
+    def refuse(*a, **kw):
+        raise exc("DFS key space exceeds the dtype")
+
+    monkeypatch.setattr(column_jax, "DeviceColumnEngine", refuse)
+    want, got = str(tmp_path / "host.maf"), str(tmp_path / "dev.maf")
+    assert hal2maf.main([halz_file, want]) == 0
+    if exc is RuntimeError:
+        with pytest.raises(RuntimeError):
+            hal2maf.main([halz_file, got, "--device"])
+        return
+    capsys.readouterr()
+    assert hal2maf.main([halz_file, got, "--device"]) == 0
+    assert "device engine unavailable" in capsys.readouterr().err
+    assert open(got, "rb").read() == open(want, "rb").read()
+
+
+@pytest.mark.parametrize("num_proc", [1, 3])
+def test_phylop_mp_keeps_workers_off_the_device(tmp_path, monkeypatch,
+                                                num_proc):
+    """halPhyloPMP hands the device to at most one worker: with several
+    workers each runs halPhyloP --device off."""
+    from hal_tpu.tools import halPhyloPMP
+
+    cmds = []
+    monkeypatch.setattr(halPhyloPMP, "get_hal_sequences",
+                        lambda hal, genome: ["s0", "s1", "s2"])
+    monkeypatch.setattr(halPhyloPMP, "run_parallel_shell_commands",
+                        lambda c, n: cmds.extend(c))
+    halPhyloPMP.run(["x.hal", "g", "m.mod", str(tmp_path / "o.wig"),
+                     "--numProc", str(num_proc)])
+    assert len(cmds) == 3
+    assert all(c.endswith(" --device off") == (num_proc > 1) for c in cmds)
